@@ -18,9 +18,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-import _bootstrap  # noqa: E402,F401 — CPU unless JWAVE_EXAMPLES_TPU=1
+import _bootstrap  # noqa: E402,F401 — repo path, CPU mesh
 
-import jwave_pro_tpu as jw  # noqa: E402
+import jwave_pro as jw  # noqa: E402
 
 
 def main():
@@ -47,7 +47,7 @@ def main():
     print(f"  reconstruct+residual max-err: {np.abs(xr - x).max():.2e}")
 
     # a signal that IS sparse in the dictionary: OMP recovers it exactly
-    from jwave_pro_tpu.ops.mp import _atom_tables
+    from jwave_pro.ops.mp import _atom_tables
     rev, _ = _atom_tables(w, level, n)
     planted = (2.0 * np.roll(rev[1], 400) - 1.4 * np.roll(rev[5], 1500)
                + 0.9 * np.roll(rev[2], 900))

@@ -8,9 +8,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-import _bootstrap  # noqa: E402,F401 — CPU unless JWAVE_EXAMPLES_TPU=1
+import _bootstrap  # noqa: E402,F401 — repo path, CPU mesh
 
-import jwave_pro_tpu as jw  # noqa: E402
+import jwave_pro as jw  # noqa: E402
 
 
 def main():

@@ -1,7 +1,7 @@
 """Tour of the continuous-wavelet family APIs — properties, presets, and
 the classic analysis patterns.
 
-TPU-native parity walk of the reference's three family deep-dive examples:
+Parity walk of the reference's three family deep-dive examples:
 ``PaulWaveletExample.java`` (properties / chirp frequency analysis / phase
 analysis), ``DOGWaveletExample.java`` (preset types / edge detection /
 singularity analysis across orders / Mexican-Hat equivalence) and
@@ -13,13 +13,13 @@ import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-import _bootstrap  # noqa: E402,F401 — CPU unless JWAVE_EXAMPLES_TPU=1
+import _bootstrap  # noqa: E402,F401 — repo path, CPU mesh
 
 import numpy as np
 
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 
 def properties_table():

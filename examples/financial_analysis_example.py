@@ -2,8 +2,8 @@
 """Scale-resolved market analysis with the fused MODWT pipelines.
 
 The reference proposes this workflow in ``docs/FINANCIAL_ROADMAP.md``
-("PROPOSED — Not Yet Implemented"); here it runs end-to-end on the
-single-pass TPU kernels:
+("PROPOSED — Not Yet Implemented"); here it runs end-to-end, on a CUDA
+GPU through the single-pass fused MODWT kernels:
 
   * wavelet variance of returns by horizon (which time scales carry risk),
   * wavelet covariance/correlation between two series by horizon
@@ -16,8 +16,7 @@ single-pass TPU kernels:
     (forward → shrink → inverse in ONE kernel; the coefficients never
     exist in memory).
 
-On a v5e chip these process ~5–10·10⁹ samples/s — a 16M-tick series in a
-few milliseconds; on CPU the same code runs via interpret/XLA fallbacks.
+On the CPU the same code runs on the XLA paths with identical semantics.
 """
 import sys
 from pathlib import Path
@@ -26,9 +25,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-import _bootstrap  # noqa: E402,F401 — CPU unless JWAVE_EXAMPLES_TPU=1
+import _bootstrap  # noqa: E402,F401 — repo path, CPU mesh
 
-import jwave_pro_tpu as jw  # noqa: E402
+import jwave_pro as jw  # noqa: E402
 
 
 def synth_returns(n, rng, vol_scale):
@@ -72,7 +71,7 @@ def main():
     x = synth_returns(n, rng, 512.0)
     y = 0.6 * np.roll(x, 16) + 0.8 * synth_returns(n, rng, 64.0)
 
-    # --- variance by horizon (fused single-pass kernel on TPU) ---------
+    # --- variance by horizon (fused single-pass kernel on a GPU) -------
     nu2_x = np.asarray(jw.modwt_variance(x, w, level))
     nu2_y = np.asarray(jw.modwt_variance(y, w, level))
     cov = np.asarray(jw.modwt_covariance(x, y, w, level))
@@ -122,7 +121,7 @@ def main():
     price = (100.0 + 8.0 * np.sin(2 * np.pi * 3 * t)
              + 4.0 * np.sin(2 * np.pi * 11 * t)).astype(np.float32)
     noisy = price + 2.0 * rng.standard_normal(n).astype(np.float32)
-    den = np.asarray(jw.modwt_denoise(noisy, w, 6, method="fused"))
+    den = np.asarray(jw.modwt_denoise(noisy, w, 6))
     mse_before = float(np.mean((noisy - price) ** 2))
     mse_after = float(np.mean((den - price) ** 2))
     print(f"denoise: MSE {mse_before:.3f} -> {mse_after:.3f} "

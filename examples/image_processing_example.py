@@ -7,11 +7,11 @@ import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-import _bootstrap  # noqa: E402,F401 — CPU unless JWAVE_EXAMPLES_TPU=1
+import _bootstrap  # noqa: E402,F401 — repo path, CPU mesh
 
 import numpy as np
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 
 def make_image(n=128, rng=None):

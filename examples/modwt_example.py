@@ -8,9 +8,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-import _bootstrap  # noqa: E402,F401 — CPU unless JWAVE_EXAMPLES_TPU=1
+import _bootstrap  # noqa: E402,F401 — repo path, CPU mesh
 
-import jwave_pro_tpu as jw  # noqa: E402
+import jwave_pro as jw  # noqa: E402
 
 
 def basic_decomposition():
@@ -46,7 +46,7 @@ def denoising():
 
 def mra():
     print("\n=== Multi-Resolution Analysis ===")
-    from jwave_pro_tpu.utils.signals import noisy_sine
+    from jwave_pro.utils.signals import noisy_sine
     x, _ = noisy_sine(128, oscillations=4)
     w = jw.wavelet("Symlet 8")
     comps = np.asarray(jw.modwt_mra(x, w, 3))

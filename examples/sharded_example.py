@@ -4,7 +4,7 @@
 Run on CPU with a virtual mesh:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/sharded_example.py
-or on a real TPU pod slice (uses all visible chips).
+or on a host with several GPUs (uses all visible devices).
 """
 import sys
 from pathlib import Path
@@ -13,13 +13,13 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-import _bootstrap  # noqa: E402,F401 — CPU unless JWAVE_EXAMPLES_TPU=1
+import _bootstrap  # noqa: E402,F401 — repo path, CPU mesh
 
 import jax  # noqa: E402
 
-import jwave_pro_tpu as jw  # noqa: E402
-from jwave_pro_tpu.parallel import make_mesh  # noqa: E402
-from jwave_pro_tpu.parallel.sharded import (  # noqa: E402
+import jwave_pro as jw  # noqa: E402
+from jwave_pro.parallel import make_mesh  # noqa: E402
+from jwave_pro.parallel.sharded import (  # noqa: E402
     cwt_sharded, imodwt_sharded, modwt_sharded,
 )
 

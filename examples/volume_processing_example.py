@@ -1,21 +1,20 @@
-"""Volume-processing tour: the 3D tier — fused 3D MODWT analysis,
+"""Volume-processing tour: the 3D tier — 3D MODWT analysis,
 shift-invariant volume denoising, and 3D multiresolution bands.
 
 Run on CPU with: JAX_PLATFORMS=cpu python examples/volume_processing_example.py
 
-The 3D MODWT runs the r5 fused Pallas kernel on TPU (the volume flattens
-to a (D, R·C) merged-lane layout — docs/PERFORMANCE.md); on CPU these toy
-shapes use the XLA separable path with identical semantics.
+The 3D MODWT runs the XLA separable path (cols, rows, then depth per
+level).
 """
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-import _bootstrap  # noqa: E402,F401 — CPU unless JWAVE_EXAMPLES_TPU=1
+import _bootstrap  # noqa: E402,F401 — repo path, CPU mesh
 
 import numpy as np
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 
 def make_volume(n=32):

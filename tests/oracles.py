@@ -1,7 +1,7 @@
 """Brute-force numpy oracles — independent re-statements of the transform math.
 
 These deliberately use the slow, obviously-correct O(N·M) index formulas from
-the reference's scalar loops (cited per function) so the fast TPU paths can be
+the reference's scalar loops (cited per function) so the fast paths can be
 validated against them without any JVM.
 """
 from __future__ import annotations

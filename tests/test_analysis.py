@@ -12,13 +12,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops.analysis import (
+import jwave_pro as jw
+from jwave_pro.ops.analysis import (
     _coherence_smoothers, _smooth, modwt_correlation,
     modwt_cross_correlation, wavelet_coherence,
 )
-from jwave_pro_tpu.ops.cwt import generate_log_scales
-from jwave_pro_tpu.wavelets.continuous import (
+from jwave_pro.ops.cwt import generate_log_scales
+from jwave_pro.wavelets.continuous import (
     MexicanHatWavelet, MorletWavelet,
 )
 
@@ -286,7 +286,7 @@ class TestRobustness:
 
 class TestUnbiasedVarianceAndCI:
     def test_unbiased_matches_masked_oracle(self, rng):
-        from jwave_pro_tpu.ops.analysis import _boundary_counts
+        from jwave_pro.ops.analysis import _boundary_counts
         x = rng.standard_normal(300)
         lvl = 3
         c = np.asarray(jw.modwt(x, DB4, lvl, method="direct"))

@@ -6,11 +6,11 @@ MeyerWaveletTest themes (SURVEY §4.5) without the JVM.
 import numpy as np
 import pytest
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops.cwt import (
+import jwave_pro as jw
+from jwave_pro.ops.cwt import (
     cwt, cwt_direct, generate_linear_scales, generate_log_scales, pad_signal,
 )
-from jwave_pro_tpu.wavelets.continuous import (
+from jwave_pro.wavelets.continuous import (
     DOGWavelet, MexicanHatWavelet, MeyerWavelet, MorletWavelet, PaulWavelet,
 )
 
@@ -171,7 +171,7 @@ def test_dog_formula_matches_reference_convention():
 
 
 def test_continuous_factory():
-    from jwave_pro_tpu.wavelets.continuous import continuous_wavelet
+    from jwave_pro.wavelets.continuous import continuous_wavelet
     assert continuous_wavelet("morlet").name == "Morlet"
     assert continuous_wavelet("dog", 3).n == 3
     with pytest.raises(ValueError):
@@ -191,7 +191,7 @@ def test_morlet_omega0_convention():
 
 def test_batched_pod_style_cwt(rng):
     # eval config: 64-scale batched scalogram on an ECG-like signal
-    from jwave_pro_tpu.utils.signals import ecg_like
+    from jwave_pro.utils.signals import ecg_like
     xb = np.stack([ecg_like(1024, seed=i) for i in range(4)])
     scales = jw.generate_log_scales(1.0, 128.0, 64)
     res = cwt(xb, scales, MorletWavelet.from_omega0(6.0), 360.0)

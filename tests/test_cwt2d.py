@@ -12,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops.cwt2d import cwt2
-from jwave_pro_tpu.wavelets.continuous2d import (
+import jwave_pro as jw
+from jwave_pro.ops.cwt2d import cwt2
+from jwave_pro.wavelets.continuous2d import (
     MexicanHat2D, Morlet2D, continuous_wavelet2d,
 )
 

@@ -2,17 +2,16 @@
 
 The banded path must be algebraically identical to the half-spectrum irfft
 path up to the 1e-8 relative band truncation; on CPU f64 that bound is
-directly observable (~1e-9).  The f32/TPU 2e-5 bound is exercised by
-tools/tpu_smoke.py.
+directly observable (~1e-9).
 """
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops import cwt as jcwt
-from jwave_pro_tpu.ops.cwt_banded import band_plan, banded_supported
+import jwave_pro as jw
+from jwave_pro.ops import cwt as jcwt
+from jwave_pro.ops.cwt_banded import band_plan, banded_supported
 
 SCALES = jw.generate_log_scales(1.0, 256.0, 64)
 
@@ -89,9 +88,9 @@ def test_banded_guards():
 def test_banded_wd_matches_full_derivative(rng, wav):
     # (W, ∂_t W) from the shared derivative plan must match the full-length
     # half-spectrum path built from _ssq_multipliers (the SSQ front end).
-    from jwave_pro_tpu.ops.cwt_banded import cwt_banded_wd
-    from jwave_pro_tpu.ops.ssq import _ssq_multipliers
-    from jwave_pro_tpu.ops.cwt import _half_irfft_chunked, pad_signal
+    from jwave_pro.ops.cwt_banded import cwt_banded_wd
+    from jwave_pro.ops.ssq import _ssq_multipliers
+    from jwave_pro.ops.cwt import _half_irfft_chunked, pad_signal
 
     n, padded_n, fs = 4000, 4096, 3.0
     x = jnp.asarray(rng.standard_normal((2, n)))
@@ -125,13 +124,13 @@ def test_banded_band_plan_prunes(rng):
 
 
 def test_precision_tier_api(rng):
-    # r5 low-precision tier (VERDICT r4 #3): precision='high'/'highest'
-    # and bf16 inputs are accepted everywhere; on CPU all tiers agree to
-    # f32 noise (the bf16x3 MXU passes exist only on TPU — the on-chip
-    # bound lives in tools/tpu_smoke.py).  'default' and bad strings.
+    # low-precision tier: precision='high'/'highest' and bf16 inputs are
+    # accepted everywhere; on CPU all tiers agree to f32 noise (reduced
+    # precision matmul passes exist only on accelerators).  'default' and
+    # bad strings.
     import jax
     from jax import lax
-    from jwave_pro_tpu.ops.cwt import _resolve_precision
+    from jwave_pro.ops.cwt import _resolve_precision
 
     assert _resolve_precision(None, False) == lax.Precision.HIGHEST
     assert _resolve_precision(None, True) == lax.Precision.HIGH

@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu import cli, datatypes, exceptions
-from jwave_pro_tpu.utils import signals
+import jwave_pro as jw
+from jwave_pro import cli, datatypes, exceptions
+from jwave_pro.utils import signals
 
 
 def test_line_block_space_dense():

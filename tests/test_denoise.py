@@ -12,7 +12,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 DB4 = jw.wavelet("Daubechies 4")
 
@@ -156,7 +156,7 @@ def test_wpt_denoise_per_sample_equals_singleton_loop(rng):
     # r5 (VERDICT r4 weak #6): per_sample=True vectorizes the cost DP so
     # every batch row adapts its own basis — must equal running each row
     # alone, on a heterogeneous batch where the shared basis differs
-    from jwave_pro_tpu.utils.signals import chirp
+    from jwave_pro.utils.signals import chirp
     n = 1024
     t = np.arange(n)
     x0 = np.sin(0.2 * t) + np.sin(0.23 * t) + 0.3 * rng.standard_normal(n)

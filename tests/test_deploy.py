@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 DB4 = jw.wavelet("Daubechies 4")
 

@@ -1,4 +1,4 @@
-"""Buffer donation — the TPU-native in-place/pooled tier.
+"""Buffer donation — the JAX in-place/pooled tier.
 
 The reference dedicates whole classes to buffer reuse
 (``InPlaceFastWaveletTransform.java:70-100``, ``PooledMODWTTransform``,
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 
 @pytest.fixture(scope="module")

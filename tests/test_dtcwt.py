@@ -11,7 +11,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 
 def _freq_resp(taps, omega):

@@ -1,8 +1,8 @@
-"""Dtype behavior: f32 accuracy (the TPU throughput dtype), preservation,
-integer promotion."""
+"""Dtype behavior: f32 accuracy (the accelerator throughput dtype),
+preservation, integer promotion."""
 import numpy as np
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 DB4 = jw.wavelet("Daubechies 4")
 

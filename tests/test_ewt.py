@@ -10,8 +10,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops.ewt import ewt_filter_bank
+import jwave_pro as jw
+from jwave_pro.ops.ewt import ewt_filter_bank
 
 
 def _three_tone(n=2048, noise=0.05, seed=0):

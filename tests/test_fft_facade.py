@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops import fft as jfft
+import jwave_pro as jw
+from jwave_pro.ops import fft as jfft
 from . import oracles
 
 TESTDATA = "/root/reference/src/test/resources/testdata"

@@ -7,7 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 
 @pytest.fixture
@@ -80,10 +80,10 @@ def test_median_select_extreme_values():
 
 
 def test_matmul_cumsum_matches_jnp(rng):
-    # r5: the expanding-RMS floor and realized vol ride an MXU triangular-
-    # matmul prefix sum (XLA's log-N cumsum was the EWMA tier's dominant
-    # cost); must match jnp.cumsum to summation-order noise, any length
-    from jwave_pro_tpu.ops.financial import _cumsum_last
+    # the expanding-RMS floor and realized vol ride a triangular-matmul
+    # prefix sum; must match jnp.cumsum to summation-order noise, any
+    # length
+    from jwave_pro.ops.financial import _cumsum_last
     for n in (7, 512, 1024, 1500, 4096):
         x = rng.standard_normal((3, n)).astype(np.float32)
         got = np.asarray(_cumsum_last(jnp.asarray(x)))

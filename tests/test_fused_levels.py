@@ -13,13 +13,13 @@ import pytest
 
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops.fwt import (
+import jwave_pro as jw
+from jwave_pro.ops.fwt import (
     _analysis_fused_matmul, _fused_levels_limit, _fused_synth_limit,
     _seq_fits_analysis, _synthesis_fused_matmul, analysis_step,
     synthesis_step,
 )
-from jwave_pro_tpu.ops.wpt import _level_widths
+from jwave_pro.ops.wpt import _level_widths
 
 
 @pytest.fixture
@@ -138,8 +138,8 @@ def test_long_filter_fused_equals_stepwise(rng):
 def test_packed_synthesis_matrix_matches_segments():
     # r4: the packed (2*BLK, BLK) synthesis constant must be exactly the
     # per-segment constants row-offset by the [a_L | d_L | ... | d_1]
-    # block layout (the MXU packing is a pure reindexing, not a new bank)
-    from jwave_pro_tpu.ops.fwt import (
+    # block layout (the packing is a pure reindexing, not a new bank)
+    from jwave_pro.ops.fwt import (
         _BLK, _synthesis_matrices_fused, _synthesis_matrix_fused_packed,
     )
     for names in (("Daubechies 4",) * 5, ("Symlet 8",) * 4,

@@ -7,7 +7,7 @@ repeated-transform rounding stability (RoundingTest.java:37-68).
 import numpy as np
 import pytest
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 from . import oracles
 
 

@@ -5,7 +5,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 GOLDEN = Path(__file__).parent / "golden" / "golden.npz"
 

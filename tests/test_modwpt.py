@@ -12,8 +12,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops.modwpt import (
+import jwave_pro as jw
+from jwave_pro.ops.modwpt import (
     imodwpt, modwpt, modwpt_basis_reconstruct, modwpt_best_basis,
     modwpt_mra, modwpt_node_path, modwpt_tree,
 )
@@ -141,7 +141,7 @@ def test_modwpt_best_basis_prefers_matching_leaf():
     x = np.sin(2 * np.pi * 0.11 * np.arange(n))
     masks, total, tree = modwpt_best_basis(x, DB4, 3, cost="shannon")
     # cost of chosen basis must be ≤ every fixed-level basis cost
-    from jwave_pro_tpu.ops.wpt import shannon_entropy_cost
+    from jwave_pro.ops.wpt import shannon_entropy_cost
     for l in (0, 3):
         row = tree[l]
         fixed = float(jnp.sum(shannon_entropy_cost(
@@ -184,7 +184,7 @@ def test_modwpt_validation(rng):
 # 2D quad-tree
 # ---------------------------------------------------------------------------
 
-from jwave_pro_tpu.ops.modwpt import (  # noqa: E402
+from jwave_pro.ops.modwpt import (  # noqa: E402
     imodwpt2, modwpt2, modwpt2_basis_reconstruct, modwpt2_best_basis,
     modwpt2_tree,
 )
@@ -246,7 +246,7 @@ def test_modwpt2_tree_and_best_basis(rng):
     xr = np.asarray(modwpt2_basis_reconstruct(tree, masks, DB4))
     np.testing.assert_allclose(xr, x, atol=1e-8)
     # chosen basis beats (or ties) every fixed-level basis
-    from jwave_pro_tpu.ops.wpt import shannon_entropy_cost
+    from jwave_pro.ops.wpt import shannon_entropy_cost
     for l in (0, 2):
         row = tree[l]
         fixed = float(jnp.sum(shannon_entropy_cost(

@@ -6,8 +6,8 @@ PropertyBasedTest MODWT shift-invariance, MODWTLevelLimitTest (SURVEY §4.5).
 import numpy as np
 import pytest
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops import denoise
+import jwave_pro as jw
+from jwave_pro.ops import denoise
 from . import oracles
 
 DB4 = jw.wavelet("Daubechies 4")
@@ -136,7 +136,7 @@ def test_flat_interface_auto_detection(rng):
 
 
 def test_modwt2_roundtrip_energy_shift(rng):
-    from jwave_pro_tpu.ops.modwt2d import imodwt2, modwt2
+    from jwave_pro.ops.modwt2d import imodwt2, modwt2
     x = rng.standard_normal((24, 40))
     c = np.asarray(modwt2(x, DB4, 3))
     assert c.shape == (10, 24, 40)
@@ -150,7 +150,7 @@ def test_modwt2_roundtrip_energy_shift(rng):
 
 
 def test_modwt2_batched(rng):
-    from jwave_pro_tpu.ops.modwt2d import modwt2
+    from jwave_pro.ops.modwt2d import modwt2
     xb = rng.standard_normal((2, 16, 16))
     cb = np.asarray(modwt2(xb, HAAR, 2))
     for i in range(2):
@@ -185,7 +185,7 @@ def test_modwt_biorthogonal_not_pr(rng):
 
 
 def test_method_selection_rules():
-    from jwave_pro_tpu.ops.modwt import _use_fft
+    from jwave_pro.ops.modwt import _use_fft
     # reference rule: N·M_upsampled > 4096 → FFT (MODWTTransform.java:640)
     assert _use_fft("auto_reference", n=1024, m_base=8, dilation=16)
     assert not _use_fft("auto_reference", n=64, m_base=4, dilation=1)
@@ -200,7 +200,7 @@ def test_modwt2_matches_separable_oracle(rng):
     # independent check: 2D MODWT == 1D oracle convolutions applied
     # separably per level.  Band letters read (row, col): LH = g along
     # rows (axis -2), h along cols (axis -1).
-    from jwave_pro_tpu.ops.modwt2d import modwt2
+    from jwave_pro.ops.modwt2d import modwt2
     x = rng.standard_normal((12, 17))
     g, h = oracles.modwt_filters(DB4)
     got = np.asarray(modwt2(x, DB4, 2))
@@ -225,7 +225,7 @@ def test_modwt2_matches_separable_oracle(rng):
 
 
 def test_wavelet_variance_partitions_total(rng):
-    from jwave_pro_tpu.ops.analysis import modwt_variance
+    from jwave_pro.ops.analysis import modwt_variance
     x = rng.standard_normal(512)
     lvl = 6
     nu2 = np.asarray(modwt_variance(x, DB4, lvl))
@@ -237,14 +237,14 @@ def test_wavelet_variance_partitions_total(rng):
 
 
 def test_wavelet_covariance_of_identical_signals(rng):
-    from jwave_pro_tpu.ops.analysis import modwt_covariance, modwt_variance
+    from jwave_pro.ops.analysis import modwt_covariance, modwt_variance
     x = rng.standard_normal(256)
     cov = np.asarray(modwt_covariance(x, x, DB4, 3))
     var = np.asarray(modwt_variance(x, DB4, 3))
     np.testing.assert_allclose(cov, var, rtol=1e-12)
 
 def test_modwt3_roundtrip_energy_shift(rng):
-    from jwave_pro_tpu.ops.modwt2d import imodwt3, modwt3
+    from jwave_pro.ops.modwt2d import imodwt3, modwt3
     x = rng.standard_normal((8, 12, 20))
     c = np.asarray(modwt3(x, DB4, 2))
     assert c.shape == (15, 8, 12, 20)
@@ -259,7 +259,7 @@ def test_modwt3_roundtrip_energy_shift(rng):
 
 
 def test_modwt3_batched_and_band_octants(rng):
-    from jwave_pro_tpu.ops.modwt2d import modwt2, modwt3
+    from jwave_pro.ops.modwt2d import modwt2, modwt3
     xb = rng.standard_normal((2, 8, 8, 8))
     cb = np.asarray(modwt3(xb, HAAR, 1))
     for i in range(2):
@@ -267,7 +267,7 @@ def test_modwt3_batched_and_band_octants(rng):
             cb[:, i], np.asarray(modwt3(xb[i], HAAR, 1)), atol=1e-12)
     # depth-constant volume: depth-high octants vanish, depth-low octants
     # equal the 2D bands of the slice (scaled by the depth DC gain Σg).
-    from jwave_pro_tpu.ops.modwt import modwt_base_filters
+    from jwave_pro.ops.modwt import modwt_base_filters
     g, _ = modwt_base_filters(DB4)
     dc = float(np.sum(np.asarray(g)))
     img = rng.standard_normal((16, 16))
@@ -283,14 +283,14 @@ def test_modwt3_batched_and_band_octants(rng):
 
 
 def test_modwt3_mra_sums_to_volume(rng):
-    from jwave_pro_tpu.ops.modwt2d import modwt3_mra
+    from jwave_pro.ops.modwt2d import modwt3_mra
     x = rng.standard_normal((8, 8, 8))
     comps = np.asarray(modwt3_mra(x, HAAR, 2))
     assert comps.shape == (15, 8, 8, 8)
     np.testing.assert_allclose(comps.sum(axis=0), x, atol=1e-10)
 
 def test_imodwt_nd_rejects_malformed_stacks(rng):
-    from jwave_pro_tpu.ops.modwt2d import imodwt2, imodwt3, modwt2, modwt3
+    from jwave_pro.ops.modwt2d import imodwt2, imodwt3, modwt2, modwt3
     c2 = modwt2(rng.standard_normal((16, 16)), HAAR, 1)   # 4 rows
     c3 = modwt3(rng.standard_normal((8, 8, 8)), HAAR, 1)  # 8 rows
     with np.testing.assert_raises(ValueError):

@@ -14,8 +14,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops.mp import _atom_tables, _gather_atoms, _spectral_tables
+import jwave_pro as jw
+from jwave_pro.ops.mp import _atom_tables
 
 W = jw.wavelet("Daubechies 4")
 N, LEVEL = 64, 2
@@ -149,23 +149,6 @@ def test_omp_batched_jit(rng):
     assert bool(jnp.all(nodes[0] == r0.nodes))
     np.testing.assert_allclose(np.asarray(resid[0]),
                                np.asarray(r0.residual), atol=1e-12)
-
-
-def test_spectral_roll_matches_exact_gather(rng):
-    # the TPU route: roll(rev_unit[node], t) as irfft(F[node]·e^{−iωt}) with
-    # the int32-wraparound (k·t) mod N phase (exact for pow-2 N) — must agree
-    # with the exact gather at f32-roundoff for ANY (node, shift), including
-    # shifts whose k·t product overflows int32 (N−1 ≈ 2¹⁶ here, k·t ≈ 2³¹)
-    n, level = 65536, 3
-    rev, _ = _atom_tables(W, level, n)
-    spec = tuple(map(jnp.asarray, _spectral_tables(W, level, n)))
-    rev32 = jnp.asarray(rev, jnp.float32)
-    nodes = jnp.asarray([0, 3, 7, 5], jnp.int32)
-    shifts = jnp.asarray([0, 1, n - 1, 54321], jnp.int32)
-    exact = _gather_atoms(rev32, nodes, shifts, n, spectral=False)
-    fast = _gather_atoms(rev32, nodes, shifts, n, spectral=spec)
-    np.testing.assert_allclose(np.asarray(fast), np.asarray(exact),
-                               atol=2e-6)
 
 
 def test_validation():

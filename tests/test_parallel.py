@@ -12,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.parallel import make_mesh
-from jwave_pro_tpu.parallel.sharded import (
+import jwave_pro as jw
+from jwave_pro.parallel import make_mesh
+from jwave_pro.parallel.sharded import (
     cwt2_sharded, cwt_sharded, cwt_signal_sharded, fwt2_sharded,
     imodwt_sharded, modwt_sharded, wpt_sharded,
 )
@@ -212,7 +212,7 @@ def test_wpt_sharded_subtree_locality(rng):
 
 @needs8
 def test_iwpt_sharded_roundtrip_and_single_gather(rng):
-    from jwave_pro_tpu.parallel.sharded import iwpt_sharded
+    from jwave_pro.parallel.sharded import iwpt_sharded
     mesh = make_mesh({"scale": 8})
     x = jnp.asarray(rng.standard_normal(1024), jnp.float64)
     y = wpt_sharded(x, DB4, 5, mesh)
@@ -232,7 +232,7 @@ def test_modwpt_node_sharded_matches(rng):
     at the first local level lands every node exactly where the unsharded
     transform puts it (odd- and even-indexed devices take different filter
     assignments)."""
-    from jwave_pro_tpu.parallel.sharded import modwpt_sharded
+    from jwave_pro.parallel.sharded import modwpt_sharded
     mesh = make_mesh({"scale": 8})
     x = rng.standard_normal(96)
     for level in (3, 5):  # level == k and level > k
@@ -243,7 +243,7 @@ def test_modwpt_node_sharded_matches(rng):
 
 @needs8
 def test_modwpt_sharded_subtree_locality(rng):
-    from jwave_pro_tpu.parallel.sharded import modwpt_sharded
+    from jwave_pro.parallel.sharded import modwpt_sharded
     mesh = make_mesh({"scale": 8})
     x = jnp.asarray(rng.standard_normal(96), jnp.float64)
     fn = jax.jit(lambda v: modwpt_sharded(v, DB4, 4, mesh))
@@ -254,7 +254,7 @@ def test_modwpt_sharded_subtree_locality(rng):
 
 @needs8
 def test_imodwpt_sharded_roundtrip_and_single_gather(rng):
-    from jwave_pro_tpu.parallel.sharded import (imodwpt_sharded,
+    from jwave_pro.parallel.sharded import (imodwpt_sharded,
                                                 modwpt_sharded)
     mesh = make_mesh({"scale": 8})
     x = jnp.asarray(rng.standard_normal(128), jnp.float64)
@@ -270,7 +270,7 @@ def test_imodwpt_sharded_roundtrip_and_single_gather(rng):
 
 @needs8
 def test_modwpt_sharded_batched(rng):
-    from jwave_pro_tpu.parallel.sharded import (imodwpt_sharded,
+    from jwave_pro.parallel.sharded import (imodwpt_sharded,
                                                 modwpt_sharded)
     mesh = make_mesh({"data": 2, "scale": 4})
     x = rng.standard_normal((4, 64))
@@ -286,7 +286,7 @@ def test_modwpt_sharded_batched(rng):
 @needs8
 def test_wpt_sharded_batched_shallow(rng):
     """level < log2(n_dev) degenerates to distributed storage; batched in."""
-    from jwave_pro_tpu.parallel.sharded import iwpt_sharded
+    from jwave_pro.parallel.sharded import iwpt_sharded
     mesh = make_mesh({"data": 2, "scale": 4})
     x = rng.standard_normal((4, 512))
     got = np.asarray(wpt_sharded(x, DB4, 2, mesh, batch_axis="data"))
@@ -319,7 +319,7 @@ def test_graft_entry_dryrun():
 
 @needs8
 def test_fwt_signal_sharded_exact(rng):
-    from jwave_pro_tpu.parallel.sharded import (
+    from jwave_pro.parallel.sharded import (
         fwt_sharded, gather_fwt_layout, ifwt_sharded,
     )
     mesh = make_mesh({"signal": 8})
@@ -336,7 +336,7 @@ def test_fwt_signal_sharded_exact(rng):
 
 @needs8
 def test_fwt_sharded_batched(rng):
-    from jwave_pro_tpu.parallel.sharded import fwt_sharded, gather_fwt_layout
+    from jwave_pro.parallel.sharded import fwt_sharded, gather_fwt_layout
     mesh = make_mesh({"data": 2, "signal": 4})
     xb = rng.standard_normal((4, 256))
     y = fwt_sharded(xb, DB4, 2, mesh)
@@ -347,7 +347,7 @@ def test_fwt_sharded_batched(rng):
 
 @needs8
 def test_scattering_scale_sharded_matches(rng):
-    from jwave_pro_tpu.parallel.sharded import scattering_sharded
+    from jwave_pro.parallel.sharded import scattering_sharded
     mesh = make_mesh({"scale": 8})
     x = rng.standard_normal(1024).astype(np.float32)
     # scattering_sharded runs the full-resolution cascade on each shard —
@@ -369,7 +369,7 @@ def test_scattering_scale_sharded_matches(rng):
 
 @needs8
 def test_scattering_sharded_batched_order1(rng):
-    from jwave_pro_tpu.parallel.sharded import scattering_sharded
+    from jwave_pro.parallel.sharded import scattering_sharded
     mesh = make_mesh({"data": 2, "scale": 4})
     xb = rng.standard_normal((4, 512)).astype(np.float32)
     want = jw.scattering1d(xb, j=4, q=1, order=1, oversampling=64)
@@ -383,7 +383,7 @@ def test_scattering_sharded_batched_order1(rng):
 def test_scattering_sharded_zero_collectives(rng):
     # the whole cascade is local: the compiled HLO must contain no
     # all-gathers / collective-permutes / all-reduces at all.
-    from jwave_pro_tpu.parallel.sharded import scattering_sharded
+    from jwave_pro.parallel.sharded import scattering_sharded
     mesh = make_mesh({"scale": 8})
     x = rng.standard_normal(1024).astype(np.float32)
     txt = jax.jit(lambda v: scattering_sharded(v, j=4, q=2, mesh=mesh).s2
@@ -395,7 +395,7 @@ def test_scattering_sharded_zero_collectives(rng):
 
 @needs8
 def test_ssq_scale_sharded_matches(rng):
-    from jwave_pro_tpu.parallel.sharded import ssq_sharded
+    from jwave_pro.parallel.sharded import ssq_sharded
     mesh = make_mesh({"scale": 8})
     t = np.arange(512) / 512.0
     x = np.sin(2 * np.pi * 40 * t).astype(np.float32)
@@ -417,7 +417,7 @@ def test_ssq_scale_sharded_matches(rng):
 @needs8
 def test_ssq_sharded_single_psum(rng):
     # with explicit gamma the ONLY collective is the one Tx psum
-    from jwave_pro_tpu.parallel.sharded import ssq_sharded
+    from jwave_pro.parallel.sharded import ssq_sharded
     mesh = make_mesh({"scale": 8})
     x = rng.standard_normal(256).astype(np.float32)
     scales = np.asarray(jw.generate_log_scales(1.0, 16.0, 8))
@@ -431,7 +431,7 @@ def test_ssq_sharded_single_psum(rng):
 
 @needs8
 def test_ssq_sharded_rejects_nonuniform_grid(rng):
-    from jwave_pro_tpu.parallel.sharded import ssq_sharded
+    from jwave_pro.parallel.sharded import ssq_sharded
     mesh = make_mesh({"scale": 8})
     with pytest.raises(ValueError, match="log-uniform"):
         ssq_sharded(rng.standard_normal(256).astype(np.float32),
@@ -440,7 +440,7 @@ def test_ssq_sharded_rejects_nonuniform_grid(rng):
 
 @needs8
 def test_modwt2_row_sharded_matches(rng):
-    from jwave_pro_tpu.parallel.sharded import imodwt2_sharded, modwt2_sharded
+    from jwave_pro.parallel.sharded import imodwt2_sharded, modwt2_sharded
     mesh = make_mesh({"signal": 8})
     x = rng.standard_normal((64, 48))
     got = np.asarray(modwt2_sharded(x, DB4, 3, mesh))
@@ -452,7 +452,7 @@ def test_modwt2_row_sharded_matches(rng):
 
 @needs8
 def test_modwt2_row_sharded_batched_2dmesh(rng):
-    from jwave_pro_tpu.parallel.sharded import modwt2_sharded
+    from jwave_pro.parallel.sharded import modwt2_sharded
     mesh = make_mesh({"data": 2, "signal": 4})
     xb = rng.standard_normal((2, 32, 16))
     got = np.asarray(modwt2_sharded(xb, DB4, 2, mesh))
@@ -463,7 +463,7 @@ def test_modwt2_row_sharded_batched_2dmesh(rng):
 @needs8
 def test_modwt2_row_sharded_multihop_halo(rng):
     # level-3 halo = 7*4 = 28 rows > per-device 8 rows -> multi-hop ring
-    from jwave_pro_tpu.parallel.sharded import modwt2_sharded
+    from jwave_pro.parallel.sharded import modwt2_sharded
     mesh = make_mesh({"signal": 8})
     x = rng.standard_normal((64, 32))
     got = np.asarray(modwt2_sharded(x, DB4, 3, mesh))
@@ -473,7 +473,7 @@ def test_modwt2_row_sharded_multihop_halo(rng):
 
 @needs8
 def test_scattering2d_path_sharded_matches(rng):
-    from jwave_pro_tpu.parallel.sharded import scattering2d_sharded
+    from jwave_pro.parallel.sharded import scattering2d_sharded
     mesh = make_mesh({"scale": 8})
     img = rng.standard_normal((32, 32)).astype(np.float32)
     # the sharded cascade is full-resolution — compare vs the exact
@@ -498,7 +498,7 @@ def test_scattering2d_path_sharded_matches(rng):
 
 @needs8
 def test_sharded_entry_validation(rng):
-    from jwave_pro_tpu.parallel.sharded import (
+    from jwave_pro.parallel.sharded import (
         modwt2_sharded, scattering2d_sharded, scattering_sharded,
         ssq_sharded)
     mesh = make_mesh({"scale": 8})
@@ -522,7 +522,7 @@ def test_sharded_entry_validation(rng):
 def test_dtcwt_signal_sharded_matches_single(rng):
     # subband-for-subband parity with the single-device dual tree — the
     # sharded outputs need no gather step (contiguous decimated shards)
-    from jwave_pro_tpu.parallel.sharded import dtcwt_sharded
+    from jwave_pro.parallel.sharded import dtcwt_sharded
     mesh = make_mesh({"signal": 8})
     x = rng.standard_normal((2, 1024))
     got = dtcwt_sharded(x, 3, mesh)
@@ -537,7 +537,7 @@ def test_dtcwt_signal_sharded_matches_single(rng):
 
 @needs8
 def test_idtcwt_sharded_roundtrip(rng):
-    from jwave_pro_tpu.parallel.sharded import dtcwt_sharded, idtcwt_sharded
+    from jwave_pro.parallel.sharded import dtcwt_sharded, idtcwt_sharded
     mesh = make_mesh({"data": 2, "signal": 4})
     x = rng.standard_normal((2, 512))
     res = dtcwt_sharded(x, 2, mesh)
@@ -547,7 +547,7 @@ def test_idtcwt_sharded_roundtrip(rng):
 
 @needs8
 def test_dtcwt_sharded_validation(rng):
-    from jwave_pro_tpu.parallel.sharded import dtcwt_sharded
+    from jwave_pro.parallel.sharded import dtcwt_sharded
     mesh = make_mesh({"signal": 8})
     with pytest.raises(ValueError, match="not divisible"):
         dtcwt_sharded(rng.standard_normal(128), 5, mesh)
@@ -564,7 +564,7 @@ def test_batch_sharded_adaptive_ops_zero_collectives(rng):
     FFT/TopK custom-calls don't SPMD-partition even on batch dims (the
     global-jit route all-gathers) — the same reason `cwt_sharded` keeps its
     per-device FFTs inside shard_map."""
-    from jwave_pro_tpu.parallel import NamedSharding, P, make_mesh
+    from jwave_pro.parallel import NamedSharding, P, make_mesh
     try:
         from jax import shard_map
     except ImportError:
@@ -605,7 +605,7 @@ def test_batch_sharded_financial_and_bestbasis_zero_collectives(rng):
     under data sharding each device's shard must run the SAME basis — we
     shard_map it so every device selects over its local elements (the
     per-shard basis may differ; parity is vs per-shard local calls)."""
-    from jwave_pro_tpu.parallel import NamedSharding, P, make_mesh
+    from jwave_pro.parallel import NamedSharding, P, make_mesh
     try:
         from jax import shard_map
     except ImportError:

@@ -10,9 +10,9 @@ import pytest
 
 import jax
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.parallel import make_mesh
-from jwave_pro_tpu.parallel.sharded import imodwt_sharded, modwt_sharded
+import jwave_pro as jw
+from jwave_pro.parallel import make_mesh
+from jwave_pro.parallel.sharded import imodwt_sharded, modwt_sharded
 
 needs8 = pytest.mark.skipif(len(jax.devices()) < 8,
                             reason="needs 8 virtual devices")

@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu.ops import fft as jfft
+import jwave_pro as jw
+from jwave_pro.ops import fft as jfft
 
 HAAR = jw.wavelet("Haar")
 DB4 = jw.wavelet("Daubechies 4")

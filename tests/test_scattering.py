@@ -11,7 +11,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 
 def _sig(n, seed=0):
@@ -179,7 +179,7 @@ class TestScattering2D:
         assert np.asarray(res.stack()).shape == (61, 8, 8)
 
     def test_littlewood_paley_frame(self):
-        from jwave_pro_tpu.ops.scattering2d import scattering2d_filters
+        from jwave_pro.ops.scattering2d import scattering2d_filters
         psi, phi, _ = scattering2d_filters(self.H, self.W, 3, 8)
         neg = np.roll(psi[:, ::-1, ::-1], (1, 1), axis=(-2, -1))
         lp = phi ** 2 + 0.5 * (psi ** 2 + neg ** 2).sum(axis=0)

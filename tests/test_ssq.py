@@ -12,7 +12,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 
 FS = 200.0
 SCALES = jw.generate_log_scales(0.01, 0.2, 64)
@@ -45,7 +45,7 @@ def test_tx_sum_equals_icwt_weighted_sum():
     # below-threshold / out-of-band coefficients (tiny for in-band tones).
     _, x = _two_tone()
     res = jw.ssq_cwt(x, SCALES, sampling_rate=FS)
-    from jwave_pro_tpu.ops.cwt import _icwt_weights
+    from jwave_pro.ops.cwt import _icwt_weights
     w = _icwt_weights(np.asarray(SCALES))
     want = np.einsum("s,st->t", w, np.asarray(res.Wx))
     got = np.asarray(jnp.sum(res.Tx, axis=-2))
@@ -152,7 +152,7 @@ def test_half_irfft_chunked_parity(rng):
     # the lax.map-chunked scale axis must match the unchunked product
     # (shared by cwt and ssq_cwt; knee shapes are too big for CPU tests,
     # so force chunk < s_count directly)
-    from jwave_pro_tpu.ops.cwt import _half_irfft_chunked
+    from jwave_pro.ops.cwt import _half_irfft_chunked
     n = 256
     xh = jnp.asarray(rng.standard_normal((3, 1, n // 2 + 1))
                      + 1j * rng.standard_normal((3, 1, n // 2 + 1)),

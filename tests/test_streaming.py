@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-import jwave_pro_tpu as jw
-from jwave_pro_tpu import streaming as st
+import jwave_pro as jw
+from jwave_pro import streaming as st
 
 DB4 = jw.wavelet("Daubechies 4")
 

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-import jwave_pro_tpu as jw
+import jwave_pro as jw
 from . import oracles
 
 DB4 = jw.wavelet("Daubechies 4")
@@ -116,7 +116,7 @@ def test_basis_reconstruct_under_jit(rng):
 
 
 def test_lifting_cdf_roundtrip_and_moments(rng):
-    from jwave_pro_tpu.ops import lifting
+    from jwave_pro.ops import lifting
     x = rng.standard_normal(64)
     for scheme, f, i in (("cdf53", lifting.cdf53, lifting.icdf53),
                          ("cdf97", lifting.cdf97, lifting.icdf97)):

@@ -6,7 +6,7 @@ wavelet filter coefficients (Daubechies, Symlets, Coiflets, Biorthogonal splines
 Legendre, Discrete Meyer, ...) inside Java class constructors, e.g.
 ``src/main/java/jwave/transforms/wavelets/daubechies/Daubechies4.java:50-62``.
 These numbers are mathematical constants (the same tables PyWavelets ships); this
-script extracts them *as data* so the TPU framework reproduces the reference
+script extracts them *as data* so the JAX framework reproduces the reference
 numerics exactly.  No code is copied — only numeric constants are evaluated.
 
 Java expression evaluation is done with a restricted AST walker (numbers,
@@ -15,7 +15,7 @@ Java expression evaluation is done with a restricted AST walker (numbers,
 ``for(...) _scalingDeCom[i] /= expr;`` (used by the Legendre family,
 ``legendre/Legendre1.java:60-63``) are applied as a whole-array divide.
 
-Output: jwave_pro_tpu/wavelets/_taps.py  (dict: name -> {dec_lo, [dec_hi], meta})
+Output: jwave_pro/wavelets/_taps.py  (dict: name -> {dec_lo, [dec_hi], meta})
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import sys
 from pathlib import Path
 
 REF = Path("/root/reference/src/main/java/jwave/transforms/wavelets")
-OUT = Path(__file__).resolve().parent.parent / "jwave_pro_tpu" / "wavelets" / "_taps.py"
+OUT = Path(__file__).resolve().parent.parent / "jwave_pro" / "wavelets" / "_taps.py"
 
 _DECL_RE = re.compile(r"double\s+(\w+)\s*=\s*([^;]+);")
 _ASSIGN_RE = re.compile(r"_(scalingDeCom|waveletDeCom|scalingReCon|waveletReCon)\[\s*(\d+)\s*\]\s*=\s*([^;]+);")

@@ -18,42 +18,39 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 SECTIONS = [
-    ("jwave_pro_tpu", "Top-level functional API"),
-    ("jwave_pro_tpu.wavelets", "Wavelet registry"),
-    ("jwave_pro_tpu.wavelets.continuous", "Continuous wavelets"),
-    ("jwave_pro_tpu.ops.fwt", "Fast Wavelet Transform"),
-    ("jwave_pro_tpu.ops.wpt", "Wavelet Packet Transform + best basis"),
-    ("jwave_pro_tpu.ops.modwt", "MODWT"),
-    ("jwave_pro_tpu.ops.modwt2d", "2D MODWT"),
-    ("jwave_pro_tpu.ops.modwpt", "MODWPT (shift-invariant packets)"),
-    ("jwave_pro_tpu.ops.analysis", "Wavelet variance/covariance"),
-    ("jwave_pro_tpu.ops.cwt", "Continuous Wavelet Transform (+ inverse)"),
-    ("jwave_pro_tpu.ops.cwt2d", "2D Continuous Wavelet Transform"),
-    ("jwave_pro_tpu.ops.ssq", "Synchrosqueezed CWT"),
-    ("jwave_pro_tpu.ops.ridge", "Ridge extraction"),
-    ("jwave_pro_tpu.ops.dtcwt", "Dual-tree complex WT"),
-    ("jwave_pro_tpu.ops.ewt", "Empirical wavelet transform"),
-    ("jwave_pro_tpu.ops.mp", "Matching pursuit"),
-    ("jwave_pro_tpu.ops.scattering", "Wavelet scattering (1D)"),
-    ("jwave_pro_tpu.ops.scattering2d", "Wavelet scattering (2D)"),
-    ("jwave_pro_tpu.ops.fft", "Fourier transforms"),
-    ("jwave_pro_tpu.ops.lifting", "Lifting schemes (CDF 5/3, 9/7)"),
-    ("jwave_pro_tpu.ops.arbitrary", "Arbitrary-length wrappers"),
-    ("jwave_pro_tpu.ops.compress", "Threshold compression"),
-    ("jwave_pro_tpu.ops.denoise", "Denoising"),
-    ("jwave_pro_tpu.ops.pywt_compat", "PyWavelets-style API"),
-    ("jwave_pro_tpu.transforms", "Object facade + builders"),
-    ("jwave_pro_tpu.parallel", "Meshes + sharded transforms"),
-    ("jwave_pro_tpu.streaming", "Streaming + chunked processing"),
-    ("jwave_pro_tpu.kernels.modwt_pallas", "Fused TPU kernels"),
-    ("jwave_pro_tpu.kernels.denoise_pallas", "Fused single-pass denoise"),
-    ("jwave_pro_tpu.kernels.variance_pallas", "Fused wavelet variance"),
-    ("jwave_pro_tpu.kernels.cwt_pallas", "Fused CWT kernel"),
-    ("jwave_pro_tpu.datatypes", "Data stores"),
-    ("jwave_pro_tpu.exceptions", "Exception hierarchy"),
-    ("jwave_pro_tpu.utils.validation", "Shape/level helpers"),
-    ("jwave_pro_tpu.utils.signals", "Test-signal generators"),
-    ("jwave_pro_tpu.utils.profiling", "Profiling helpers"),
+    ("jwave_pro", "Top-level functional API"),
+    ("jwave_pro.wavelets", "Wavelet registry"),
+    ("jwave_pro.wavelets.continuous", "Continuous wavelets"),
+    ("jwave_pro.ops.fwt", "Fast Wavelet Transform"),
+    ("jwave_pro.ops.wpt", "Wavelet Packet Transform + best basis"),
+    ("jwave_pro.ops.modwt", "MODWT"),
+    ("jwave_pro.ops.modwt2d", "2D MODWT"),
+    ("jwave_pro.ops.modwpt", "MODWPT (shift-invariant packets)"),
+    ("jwave_pro.ops.analysis", "Wavelet variance/covariance"),
+    ("jwave_pro.ops.cwt", "Continuous Wavelet Transform (+ inverse)"),
+    ("jwave_pro.ops.cwt2d", "2D Continuous Wavelet Transform"),
+    ("jwave_pro.ops.ssq", "Synchrosqueezed CWT"),
+    ("jwave_pro.ops.ridge", "Ridge extraction"),
+    ("jwave_pro.ops.dtcwt", "Dual-tree complex WT"),
+    ("jwave_pro.ops.ewt", "Empirical wavelet transform"),
+    ("jwave_pro.ops.mp", "Matching pursuit"),
+    ("jwave_pro.ops.scattering", "Wavelet scattering (1D)"),
+    ("jwave_pro.ops.scattering2d", "Wavelet scattering (2D)"),
+    ("jwave_pro.ops.fft", "Fourier transforms"),
+    ("jwave_pro.ops.lifting", "Lifting schemes (CDF 5/3, 9/7)"),
+    ("jwave_pro.ops.arbitrary", "Arbitrary-length wrappers"),
+    ("jwave_pro.ops.compress", "Threshold compression"),
+    ("jwave_pro.ops.denoise", "Denoising"),
+    ("jwave_pro.ops.pywt_compat", "PyWavelets-style API"),
+    ("jwave_pro.transforms", "Object facade + builders"),
+    ("jwave_pro.parallel", "Meshes + sharded transforms"),
+    ("jwave_pro.streaming", "Streaming + chunked processing"),
+    ("jwave_pro.kernels.modwt_cuda", "Fused MODWT kernels (CUDA)"),
+    ("jwave_pro.datatypes", "Data stores"),
+    ("jwave_pro.exceptions", "Exception hierarchy"),
+    ("jwave_pro.utils.validation", "Shape/level helpers"),
+    ("jwave_pro.utils.signals", "Test-signal generators"),
+    ("jwave_pro.utils.profiling", "Profiling helpers"),
 ]
 
 

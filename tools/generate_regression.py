@@ -24,7 +24,7 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 
-import jwave_pro_tpu as jw  # noqa: E402
+import jwave_pro as jw  # noqa: E402
 
 OUT = ROOT / "tests" / "golden"
 
