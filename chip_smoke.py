@@ -4,8 +4,6 @@ transform family once, and the fused kernels against XLA's plain version.
 
     python chip_smoke.py             # one CUDA GPU
     python chip_smoke.py --four      # the sharded paths on four GPUs
-    python chip_smoke.py --rehearse  # small sizes on any backend, for
-                                     # checking this script without a card
 
 Every check prints its error, its bound and the bound's reason.  The run
 exits non-zero, without the result line, when JAX's default device is not a
@@ -31,6 +29,13 @@ import traceback
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+SEED = 0
+BATCH, N = 32, 1 << 20      # the bench headline: 128 MiB of f32 in
+N_ARB = 100_003             # arbitrary N, partial last tile
+N_1D = 16_000_003           # one long series through the 1D contract
+REACH = 4096                # the reach phase's base length
+N_FOUR = 1 << 22            # samples per row of the four-card MODWT
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +166,7 @@ def card_line():
 # Phases
 # ---------------------------------------------------------------------------
 
-def main_path(ck, jw, x, wavelet, level, label, sizes, full=True):
+def main_path(ck, jw, x, wavelet, level, label, full=True):
     """modwt → imodwt, denoise (fixed and universal threshold) and variance
     on device array ``x`` (B, N) or (N,), checked on a few full rows."""
     import jax
@@ -175,14 +180,13 @@ def main_path(ck, jw, x, wavelet, level, label, sizes, full=True):
     xs = np.asarray(pick(x), np.float64)
     g, h = reference_filters(wavelet.dec_lo, wavelet.dec_hi)
     amax = float(np.max(np.abs(xs)))
-    expect = "kernel" if sizes.kernels else "xla"
 
     def run(name, fn, arg):
         path = path_of(fn, arg)
         f = jax.jit(fn)
         t, _ = wall(f, arg, reps=3)
         out = f(arg)
-        ck.true(f"{label} {name} path", path == expect,
+        ck.true(f"{label} {name} path", path == "kernel",
                 f"ran {path} in {t * 1e3:.3f} ms")
         return out
 
@@ -217,7 +221,7 @@ def main_path(ck, jw, x, wavelet, level, label, sizes, full=True):
              1e-4, "f32 accumulation over 2^20 terms: relative 1e-4")
 
 
-def bf16_path(ck, jw, x, wavelet, level, label, sizes):
+def bf16_path(ck, jw, x, wavelet, level, label):
     """bf16 in/out, f32 arithmetic: compared with the f64 reference of the
     bf16-rounded input, so the error left is the output rounding."""
     import jax
@@ -227,24 +231,22 @@ def bf16_path(ck, jw, x, wavelet, level, label, sizes):
     rows = np.unique(np.linspace(0, x.shape[0] - 1, 4).astype(int))
     xs = np.asarray(x16[rows].astype(jnp.float32), np.float64)
     g, h = reference_filters(wavelet.dec_lo, wavelet.dec_hi)
-    expect = "kernel" if sizes.kernels else "xla"
     fwd = lambda v: jw.modwt(v, wavelet, level)  # noqa: E731
     path = path_of(fwd, x16)
     c = jax.jit(fwd)(x16)
-    ck.true(f"{label} bf16 modwt path", path == expect and
+    ck.true(f"{label} bf16 modwt path", path == "kernel" and
             c.dtype == jnp.bfloat16, f"ran {path}, dtype {c.dtype}")
     got = np.asarray(c[:, rows].astype(jnp.float32), np.float64)
     ck.bound(f"{label} bf16 modwt",
              float(np.max(np.abs(got - reference_modwt(xs, g, h, level)))),
-             *((3e-2, "f32 arithmetic, bf16 output rounding: TestBf16Tier "
-                "bound 3e-2") if sizes.kernels else
-               (1e-1, "XLA computes every level in bf16")))
+             3e-2, "f32 arithmetic, bf16 output rounding: TestBf16Tier "
+             "bound 3e-2")
     del c
     dn_f = lambda v: jw.modwt_denoise(v, wavelet, level,  # noqa: E731
                                       threshold=0.8)
     path = path_of(dn_f, x16)
     dn = jax.jit(dn_f)(x16)
-    ck.true(f"{label} bf16 denoise path", path == expect and
+    ck.true(f"{label} bf16 denoise path", path == "kernel" and
             dn.dtype == jnp.bfloat16, f"ran {path}, dtype {dn.dtype}")
     got = np.asarray(dn[rows].astype(jnp.float32), np.float64)
     ck.bound(f"{label} bf16 denoise",
@@ -278,25 +280,66 @@ def gradients(ck, jw, x, wavelet, level, label):
                  "f32 VJP cascades: 1e-4·max(|grad|, |x|)")
 
 
-def phase_main(ck, jw, sizes):
+def phase_main(ck, jw):
     import jax.numpy as jnp
 
-    rng = np.random.default_rng(sizes.seed)
+    rng = np.random.default_rng(SEED)
     db4 = jw.wavelet("Daubechies 4")
     sym8 = jw.wavelet("Symlet 8")
-    b, n = sizes.batch, sizes.n
-    x = jnp.asarray(rng.standard_normal((b, n), np.float32))
-    main_path(ck, jw, x, db4, 5, f"Db4 L5 {b}x{n}", sizes)
-    main_path(ck, jw, x, sym8, 5, f"Sym8 L5 {b}x{n}", sizes, full=False)
-    bf16_path(ck, jw, x, db4, 5, f"Db4 L5 {b}x{n}", sizes)
+    x = jnp.asarray(rng.standard_normal((BATCH, N), np.float32))
+    main_path(ck, jw, x, db4, 5, f"Db4 L5 {BATCH}x{N}")
+    main_path(ck, jw, x, sym8, 5, f"Sym8 L5 {BATCH}x{N}", full=False)
+    bf16_path(ck, jw, x, db4, 5, f"Db4 L5 {BATCH}x{N}")
     xg = x[:4, :1 << 16]
     gradients(ck, jw, xg, db4, 5, f"Db4 L5 {xg.shape[0]}x{xg.shape[1]}")
     del x
-    xa = jnp.asarray(rng.standard_normal((b, sizes.n_arb), np.float32))
-    main_path(ck, jw, xa, db4, 5, f"Db4 L5 {b}x{sizes.n_arb}", sizes)
+    xa = jnp.asarray(rng.standard_normal((BATCH, N_ARB), np.float32))
+    main_path(ck, jw, xa, db4, 5, f"Db4 L5 {BATCH}x{N_ARB}")
     del xa
-    x1 = jnp.asarray(rng.standard_normal(sizes.n_1d, np.float32))
-    main_path(ck, jw, x1, db4, 5, f"Db4 L5 {sizes.n_1d}", sizes)
+    x1 = jnp.asarray(rng.standard_normal(N_1D, np.float32))
+    main_path(ck, jw, x1, db4, 5, f"Db4 L5 {N_1D}")
+
+
+def phase_host(ck, jw):
+    """The main path on float32 arrays placed on the host CPU of the GPU
+    machine: the programs are lowered for the CPU, so they must hold the
+    XLA cascade and no custom call, and still agree with the reference."""
+    import jax
+
+    cpu = jax.local_devices(backend="cpu")[0]
+    rng = np.random.default_rng(SEED + 4)
+    db4 = jw.wavelet("Daubechies 4")
+    xs = rng.standard_normal((4, N_ARB // 16)).astype(np.float32)
+    g, h = reference_filters(db4.dec_lo, db4.dec_hi)
+    ref = reference_modwt(xs, g, h, 5)
+    amax = float(np.max(np.abs(xs)))
+    with jax.default_device(cpu):
+        x = jax.device_put(xs, cpu)
+        calls = {
+            "modwt": (lambda v: jw.modwt(v, db4, 5), x, ref, 2e-5),
+            "imodwt": (lambda c: jw.imodwt(c, db4),
+                       jax.device_put(ref.astype(np.float32), cpu), xs, 1e-4),
+            "denoise thr=0.8": (lambda v: jw.modwt_denoise(
+                v, db4, 5, threshold=0.8), x,
+                reference_denoise(xs, g, h, 5, 0.8), 1e-4),
+        }
+        for name, (fn, arg, want, rel) in calls.items():
+            path = path_of(fn, arg)
+            out = jax.jit(fn)(arg)
+            ck.true(f"host f32 {name} path", path == "xla" and
+                    out.devices() == {cpu}, f"ran {path} on {out.devices()}")
+            ck.bound(f"host f32 {name}",
+                     float(np.max(np.abs(np.asarray(out, np.float64) - want))),
+                     rel * amax, f"f32 XLA cascade: {rel:g}·max|x|")
+        var = np.asarray(jax.jit(lambda v: jw.modwt_variance(v, db4, 5))(x))
+        ck.bound("host f32 variance",
+                 float(np.max(np.abs(var / np.mean(ref[:5] ** 2, -1) - 1))),
+                 1e-4, "f32 accumulation: relative 1e-4")
+    hlo = jax.jit(lambda v: jw.modwt(v, db4, 5)).lower(
+        jax.device_put(xs)).compile().as_text()
+    ck.true("card program keeps no routing branch",
+            "jwave_modwt_fwd" in hlo and "conditional" not in hlo,
+            "the compiled GPU program calls the kernel with no conditional")
 
 
 def cpu_f64(fn, *args):
@@ -309,16 +352,16 @@ def cpu_f64(fn, *args):
         return jax.tree.map(np.asarray, fn(*args))
 
 
-def phase_reach(ck, jw, sizes):
+def phase_reach(ck, jw):
     """Every public transform family once, on the card, at a small real
     size: by round trip, or against its float64 CPU counterpart."""
     import jax
     import jax.numpy as jnp
     from jwave_pro import streaming
 
-    rng = np.random.default_rng(sizes.seed + 1)
+    rng = np.random.default_rng(SEED + 1)
     db4 = jw.wavelet("Daubechies 4")
-    s = sizes.reach
+    s = REACH
 
     def sig(*shape):
         return jnp.asarray(rng.standard_normal(shape, np.float32))
@@ -414,7 +457,7 @@ def phase_reach(ck, jw, sizes):
              "f32 rounding over L levels x M taps: 2e-5·max|x|")
 
 
-def phase_timing(ck, jw, sizes, card):
+def phase_timing(ck, jw, card):
     """Each main-path public call, fused kernel against method='direct'
     (what XLA makes of the plain roll form), with first-call seconds
     (compilation included; runs before the other phases so those calls
@@ -422,13 +465,13 @@ def phase_timing(ck, jw, sizes, card):
     import jax
     import jax.numpy as jnp
 
-    rng = np.random.default_rng(sizes.seed + 2)
+    rng = np.random.default_rng(SEED + 2)
     db4 = jw.wavelet("Daubechies 4")
     sym8 = jw.wavelet("Symlet 8")
-    b, n = sizes.batch, sizes.n
+    b, n = BATCH, N
     x = jnp.asarray(rng.standard_normal((b, n), np.float32))
-    xa = jnp.asarray(rng.standard_normal((b, sizes.n_arb), np.float32))
-    x1 = jnp.asarray(rng.standard_normal(sizes.n_1d, np.float32))
+    xa = jnp.asarray(rng.standard_normal((b, N_ARB), np.float32))
+    x1 = jnp.asarray(rng.standard_normal(N_1D, np.float32))
     c = jw.modwt(x, db4, 5, "direct")
     cases = [
         (f"modwt Db4 L5 {b}x{n}", lambda m: lambda v: jw.modwt(v, db4, 5, m), x),
@@ -440,28 +483,51 @@ def phase_timing(ck, jw, sizes, card):
         (f"variance Db4 L5 {b}x{n}", lambda m: lambda v:
          jw.modwt_variance(v, db4, 5, method=m), x),
         (f"modwt Sym8 L5 {b}x{n}", lambda m: lambda v: jw.modwt(v, sym8, 5, m), x),
-        (f"modwt Db4 L5 {b}x{sizes.n_arb}",
+        (f"modwt Db4 L5 {b}x{N_ARB}",
          lambda m: lambda v: jw.modwt(v, db4, 5, m), xa),
-        (f"modwt Db4 L5 {sizes.n_1d}",
+        (f"modwt Db4 L5 {N_1D}",
          lambda m: lambda v: jw.modwt(v, db4, 5, m), x1),
     ]
-    rows = []
     for name, make, arg in cases:
-        tk, ck_first = wall(jax.jit(make("fused")), arg)
-        tx, cx_first = wall(jax.jit(make("direct")), arg)
-        rows.append(dict(case=name, kernel_ms=tk * 1e3, direct_ms=tx * 1e3,
-                         kernel_first_s=ck_first, direct_first_s=cx_first))
+        tk, ck_first = wall(jax.jit(make("fused")), arg, reps=20)
+        tx, cx_first = wall(jax.jit(make("direct")), arg, reps=20)
         ck.true(f"timing {name}", tk < tx,
-                f"kernel {tk * 1e3:.4f} ms (first call {ck_first:.2f} s) vs "
-                f"direct {tx * 1e3:.4f} ms (first call {cx_first:.2f} s), "
+                f"kernel {tk * 1e3:.4f} ms (first call {ck_first:.3f} s) vs "
+                f"direct {tx * 1e3:.4f} ms (first call {cx_first:.3f} s), "
                 f"speed-up {tx / tk:.2f}x [{card}]")
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "chip_smoke_timing.json"),
-              "w") as fh:
-        json.dump(dict(card=card, rows=rows), fh, indent=1)
 
 
-def phase_four(ck, jw, sizes):
+def branch_timing(jw, card):
+    """CWT and SSQ at the bench shapes, 'auto' (the half-spectrum irfft
+    path) against method='banded' (the pruned-band matmul plan): the
+    measurement behind 'auto''s choice, reported and not asserted."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(SEED + 5)
+    xc = jnp.asarray(rng.standard_normal((16, 4096), np.float32))
+    scales = tuple(float(a) for a in jw.generate_log_scales(1.0, 256.0, 64))
+    wav = jw.MorletWavelet()
+    fc = float(wav.center_frequency)
+    sscales = tuple(float(a) for a in
+                    jw.generate_log_scales(fc / 0.4, fc / 0.01, 32))
+    cases = [
+        ("cwt Morlet 16x4096 64 scales", lambda m: lambda v: jw.cwt(
+            v, scales, wav, method=m).coefficients, xc),
+        ("cwt Mexican Hat 16x4096 64 scales", lambda m: lambda v: jw.cwt(
+            v, scales, jw.MexicanHatWavelet(), method=m).coefficients, xc),
+        ("ssq_cwt Morlet 4x4096 32 scales", lambda m: lambda v: jw.ssq_cwt(
+            v, sscales, wavelet=wav, gamma=1e-4, method=m).Tx, xc[:4]),
+    ]
+    for name, make, arg in cases:
+        ta, _ = wall(jax.jit(make("auto")), arg, reps=20)
+        tb, _ = wall(jax.jit(make("banded")), arg, reps=20)
+        print(f"  INFO branch {name}: auto {ta * 1e3:.4f} ms vs banded "
+              f"{tb * 1e3:.4f} ms, auto {'faster' if ta < tb else 'SLOWER'} "
+              f"[{card}]", flush=True)
+
+
+def phase_four(ck, jw):
     """Signal-sharded MODWT (ppermute halo ring) and scale-sharded CWT on a
     4-device mesh, against the single-device results."""
     import jax
@@ -472,7 +538,7 @@ def phase_four(ck, jw, sizes):
 
     devs = jax.devices()[:4]
     ck.true("four devices", len(devs) == 4, f"{devs}")
-    rng = np.random.default_rng(sizes.seed + 3)
+    rng = np.random.default_rng(SEED + 3)
     db4 = jw.wavelet("Daubechies 4")
 
     def spread(name, arr):
@@ -481,7 +547,7 @@ def phase_four(ck, jw, sizes):
                 f"{len(devices)} devices, shard shape "
                 f"{arr.addressable_shards[0].data.shape}")
 
-    x = jnp.asarray(rng.standard_normal((8, sizes.n_four), np.float32))
+    x = jnp.asarray(rng.standard_normal((8, N_FOUR), np.float32))
     mesh = make_mesh({"signal": 4}, devices=devs)
     c = jax.jit(lambda v: modwt_sharded(v, db4, 5, mesh))(x)
     spread("modwt_sharded", c)
@@ -497,7 +563,7 @@ def phase_four(ck, jw, sizes):
              float(jnp.max(jnp.abs(jax.device_put(xr, devs[0]) - single))),
              1e-4 * amax, "two f32 cascades compound: 1e-4·max|x|")
 
-    xc = jnp.asarray(rng.standard_normal((16, sizes.reach), np.float32))
+    xc = jnp.asarray(rng.standard_normal((16, REACH), np.float32))
     scales = tuple(float(a) for a in jw.generate_log_scales(1.0, 256.0, 64))
     smesh = make_mesh({"scale": 4}, devices=devs)
     cs = cwt_sharded(xc, scales, jw.MorletWavelet(), smesh).coefficients
@@ -510,28 +576,10 @@ def phase_four(ck, jw, sizes):
              "f32 FFT products, full vs half spectrum: 1e-4·max|ref|")
 
 
-class Sizes:
-    """Full sizes on the card; small ones for a rehearsal, which also
-    expects the XLA path instead of the kernels."""
-
-    def __init__(self, rehearse):
-        full = not rehearse
-        self.seed = 0
-        self.batch = 32 if full else 4
-        self.n = 1 << 20 if full else 4096
-        self.n_arb = 100_003 if full else 3001
-        self.n_1d = 16_000_003 if full else 20_011
-        self.reach = 4096 if full else 1024
-        self.n_four = 1 << 22 if full else 8192
-        self.kernels = full
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--four", action="store_true",
                     help="run only the four-GPU sharded paths")
-    ap.add_argument("--rehearse", action="store_true",
-                    help="small sizes on any backend; prints no result line")
     args = ap.parse_args(argv)
 
     import jax
@@ -540,11 +588,11 @@ def main(argv=None):
     platform = devs[0].platform
     print(f"devices: {devs}", flush=True)
     print(f"device_kind: {devs[0].device_kind}", flush=True)
-    if platform != "gpu" and not args.rehearse:
+    if platform != "gpu":
         print(f"chip_smoke: JAX found no GPU (platform {platform!r}); "
               "this test runs only on the card", file=sys.stderr)
         return 2
-    if "JAX_COMPILATION_CACHE_DIR" not in os.environ and platform == "gpu":
+    if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
         jax.config.update("jax_compilation_cache_dir",
                           os.path.join(REPO, ".jax_cache"))
     card = card_line()
@@ -553,27 +601,24 @@ def main(argv=None):
     sys.path.insert(0, REPO)
     import jwave_pro as jw
 
-    sizes = Sizes(args.rehearse)
     ck = Checks()
     if args.four:
-        ck.phase("four devices", phase_four, ck, jw, sizes)
+        ck.phase("four devices", phase_four, ck, jw)
     else:
-        if sizes.kernels:
-            from jwave_pro.kernels import modwt_cuda
+        from jwave_pro.kernels import modwt_cuda
 
-            t0 = time.perf_counter()
-            ck.true("fused kernels available", modwt_cuda.available(),
-                    f"build and registration {time.perf_counter() - t0:.1f} s")
-        if sizes.kernels:   # first, so its first calls are cold compiles
-            ck.phase("kernel against XLA", phase_timing, ck, jw, sizes, card)
-        ck.phase("main path", phase_main, ck, jw, sizes)
-        ck.phase("reach", phase_reach, ck, jw, sizes)
+        t0 = time.perf_counter()
+        ck.true("fused kernels available", modwt_cuda.available(),
+                f"build and registration {time.perf_counter() - t0:.1f} s")
+        # first, so its first calls are cold compiles
+        ck.phase("kernel against XLA", phase_timing, ck, jw, card)
+        ck.phase("XLA branch choices", branch_timing, jw, card)
+        ck.phase("main path", phase_main, ck, jw)
+        ck.phase("host-placed arrays", phase_host, ck, jw)
+        ck.phase("reach", phase_reach, ck, jw)
     if ck.failed:
         print(f"FAILED: {ck.failed}", flush=True)
         return 1
-    if args.rehearse:
-        print("rehearsal passed (no result line off the card)")
-        return 0
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": platform, "kind": devs[0].device_kind,

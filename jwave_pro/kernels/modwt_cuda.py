@@ -12,12 +12,17 @@ Block program.  Each CUDA block owns the window of one tile of one row plus
 ``halo = (M-1)(2^L-1)`` samples of circular context (rounded up to 32), on
 the left for analysis, on the right for synthesis, on both sides for the
 denoise.  Context comes from the block's own indexed loads (position mod N),
-so any N works without padding and no state passes between blocks.  The
-jnp functions ``_emulate_*`` below run the same block program (same
-windows, same level order, f32 arithmetic) and are what ``interpret=True``
-executes: the CPU tests pin tiling, context and slicing through them,
-because a CUDA kernel has no interpret mode.  Parity of the compiled
-kernels on the card is checked by ``chip_smoke.py``.
+so any N works without padding and no state passes between blocks.
+
+Routing.  Each entry point holds two programs, chosen by
+``jax.lax.platform_dependent`` when the call is lowered: the custom call
+where it is lowered for a CUDA GPU, the XLA cascade (``method="direct"`` in
+f32) for any other platform, so arrays placed on the host CPU of a GPU
+machine take XLA.  A CUDA kernel has no interpret mode; ``interpret=True``
+runs the XLA cascade in its place, which lets the CPU tests pin the plan,
+the reshaping, the threshold tables and the VJP rules.  The compiled
+kernels' tiling, context and seams are checked on the card by
+``chip_smoke.py`` against a float64 NumPy reference.
 
 Build.  The library is compiled from ``modwt_cuda.cu`` with ``nvcc`` for
 ``sm_90a`` on first use, into ``_build/`` beside this file (listed in
@@ -49,7 +54,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ..ops.modwt import _check_level, modwt_base_filters
+from ..ops.modwt import _check_level, imodwt, modwt, modwt_base_filters
 from ..wavelets.base import DiscreteWavelet
 
 __all__ = [
@@ -210,84 +215,36 @@ def applies(kind: str, x, level: int, wavelet: DiscreteWavelet) -> bool:
             is not None and available())
 
 
-def _require(what: str) -> None:
+def _require() -> None:
     if not available():
         raise ValueError(
-            f"{what} needs a CUDA GPU and nvcc; this process has "
-            f"{jax.devices()[0].platform} devices (pass interpret=True to run "
-            "the block program in jnp)")
+            "a fused MODWT kernel needs a CUDA GPU and nvcc; this process "
+            f"has {jax.devices()[0].platform} devices (interpret=True runs "
+            "the XLA cascade in its place)")
 
 
 # ---------------------------------------------------------------------------
-# The block program in jnp (what interpret=True runs)
+# Routing: the kernel where the call is lowered for a CUDA GPU, XLA elsewhere
 # ---------------------------------------------------------------------------
 
-def _windows(x2, tile, start, width):
-    """(rows, n) → (rows, ntiles, width): window t covers positions
-    ``t·tile + start + i`` mod n, as each block's indexed loads do."""
-    n = x2.shape[-1]
-    ntiles = -(-n // tile)
-    idx = (np.arange(ntiles)[:, None] * tile + start
-           + np.arange(width)[None, :]) % n
-    return x2[:, idx].astype(jnp.float32)
+def _route(kernel, plain, *args, interpret=False):
+    """``kernel(*args)`` in a program lowered for a CUDA GPU, ``plain(*args)``
+    (the XLA cascade) in one lowered for any other platform, so that work
+    placed on the host CPU of a GPU machine never reaches the CUDA-only
+    custom call.  ``interpret=True`` runs ``plain`` on any backend."""
+    if interpret:
+        return plain(*args)
+    _require()
+    return jax.lax.platform_dependent(*args, cuda=kernel, default=plain)
 
 
-def _analysis(cur, g, h, level, width):
-    """Analysis cascade over windows valid from index 0 to ``width``.
-
-    Yields ``(lo, W)`` per level with W valid on window indices [lo, width),
-    and finally returns V_L valid from its ``lo``."""
-    m = len(g)
-    off = 0
-    out = []
-    for j in range(1, level + 1):
-        d = 1 << (j - 1)
-        lo = off + (m - 1) * d
-        size = width - lo
-        taps = [cur[..., (m - 1 - k) * d:(m - 1 - k) * d + size]
-                for k in range(m)]
-        v = sum(float(g[k]) * taps[k] for k in range(m))
-        w = sum(float(h[k]) * taps[k] for k in range(m))
-        out.append((lo, w))
-        cur, off = v, lo
-    return out, (off, cur)
+def _plain_forward(x2, wavelet, level):
+    return modwt(x2.astype(jnp.float32), wavelet, level,
+                 "direct").astype(x2.dtype)
 
 
-def _synthesis(v, w_rows, g, h, end):
-    """Synthesis cascade: v and w_rows[j-1] valid on [0, end) of windows
-    that start at the output tile."""
-    m = len(g)
-    level = len(w_rows)
-    for j in range(level, 0, -1):
-        d = 1 << (j - 1)
-        end -= (m - 1) * d
-        w = w_rows[j - 1]
-        v = sum(float(g[k]) * v[..., k * d:k * d + end]
-                + float(h[k]) * w[..., k * d:k * d + end] for k in range(m))
-    return v
-
-
-def _untile(tiles, n):
-    rows, ntiles, tile = tiles.shape
-    return tiles.reshape(rows, ntiles * tile)[:, :n]
-
-
-def _emulate_forward(x2, g, h, level, p):
-    n = x2.shape[-1]
-    width = p.tile + p.halo
-    cur = _windows(x2, p.tile, -p.halo, width)
-    w_rows, (off, v) = _analysis(cur, g, h, level, width)
-    rows = [_untile(w[..., p.halo - lo:], n) for lo, w in w_rows]
-    rows.append(_untile(v[..., p.halo - off:], n))
-    return jnp.stack(rows).astype(x2.dtype)
-
-
-def _emulate_inverse(c3, g, h, p):
-    n = c3.shape[-1]
-    width = p.tile + p.halo
-    wins = [_windows(c3[j], p.tile, 0, width) for j in range(c3.shape[0])]
-    v = _synthesis(wins[-1], wins[:-1], g, h, width)
-    return _untile(v[..., :p.tile], n).astype(c3.dtype)
+def _plain_inverse(c3, wavelet):
+    return imodwt(c3.astype(jnp.float32), wavelet, "direct").astype(c3.dtype)
 
 
 def _shrink(w, t, mode):
@@ -296,29 +253,16 @@ def _shrink(w, t, mode):
     return jnp.where(jnp.abs(w) > t, w, 0.0)
 
 
-def _emulate_denoise(x2, thr, g, h, level, mode, p):
-    n = x2.shape[-1]
-    width = p.tile + 2 * p.halo
-    cur = _windows(x2, p.tile, -p.halo, width)
-    w_rows, (off, v) = _analysis(cur, g, h, level, width)
-    det = [_shrink(w[..., p.halo - lo:], thr[j][:, None, None], mode)
-           for j, (lo, w) in enumerate(w_rows)]
-    out = _synthesis(v[..., p.halo - off:], det, g, h, p.tile + p.halo)
-    return _untile(out[..., :p.tile], n).astype(x2.dtype)
+def _plain_denoise(x2, thr, wavelet, level, mode):
+    c = modwt(x2.astype(jnp.float32), wavelet, level, "direct")
+    det = _shrink(c[:level], thr[..., None], mode)
+    return imodwt(jnp.concatenate([det, c[level:]]), wavelet,
+                  "direct").astype(x2.dtype)
 
 
-def _emulate_variance(x2, g, h, level, p):
-    n = x2.shape[-1]
-    width = p.tile + p.halo
-    cur = _windows(x2, p.tile, -p.halo, width)
-    w_rows, last = _analysis(cur, g, h, level, width)
-    ntiles = cur.shape[1]
-    pos = np.arange(ntiles)[:, None] * p.tile + np.arange(p.tile)[None, :]
-    valid = jnp.asarray(pos < n)
-    sums = [jnp.sum(jnp.where(valid, jnp.square(r[..., p.halo - lo:]), 0.0),
-                    axis=-1)
-            for lo, r in w_rows + [last]]
-    return jnp.stack(sums, axis=-1)          # (rows, ntiles, level+1)
+def _plain_variance(x2, wavelet, level):
+    c = modwt(x2.astype(jnp.float32), wavelet, level, "direct")
+    return jnp.mean(jnp.square(c), axis=-1)       # (level+1, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -353,16 +297,14 @@ def _forward(x, wavelet, level, tile=None, interpret=False):
     g, h = _taps(wavelet)
     p = _plan_or_raise("forward", x2.shape[0], n, level, len(g), tile,
                        x.shape)
-    if interpret:
-        out = _emulate_forward(x2, g, h, level, p)
-    else:
-        _require("the fused MODWT")
-        out = jax.ffi.ffi_call(
-            "jwave_modwt_fwd",
-            jax.ShapeDtypeStruct((level + 1,) + x2.shape, x.dtype),
-            vmap_method="sequential",
-        )(x2, level=np.int32(level), tile=np.int32(p.tile),
-          halo=np.int32(p.halo), g=g, h=h)
+    kernel = jax.ffi.ffi_call(
+        "jwave_modwt_fwd",
+        jax.ShapeDtypeStruct((level + 1,) + x2.shape, x.dtype),
+        vmap_method="sequential")
+    out = _route(
+        lambda v: kernel(v, level=np.int32(level), tile=np.int32(p.tile),
+                         halo=np.int32(p.halo), g=g, h=h),
+        lambda v: _plain_forward(v, wavelet, level), x2, interpret=interpret)
     return out.reshape((level + 1,) + batch + (n,))
 
 
@@ -377,15 +319,13 @@ def _inverse(c, wavelet, tile=None, interpret=False):
     g, h = _taps(wavelet)
     p = _plan_or_raise("inverse", c3.shape[1], n, level, len(g), tile,
                        c.shape)
-    if interpret:
-        out = _emulate_inverse(c3, g, h, p)
-    else:
-        _require("the fused inverse MODWT")
-        out = jax.ffi.ffi_call(
-            "jwave_modwt_inv",
-            jax.ShapeDtypeStruct(c3.shape[1:], c.dtype),
-            vmap_method="sequential",
-        )(c3, tile=np.int32(p.tile), halo=np.int32(p.halo), g=g, h=h)
+    kernel = jax.ffi.ffi_call(
+        "jwave_modwt_inv", jax.ShapeDtypeStruct(c3.shape[1:], c.dtype),
+        vmap_method="sequential")
+    out = _route(
+        lambda v: kernel(v, tile=np.int32(p.tile), halo=np.int32(p.halo),
+                         g=g, h=h),
+        lambda v: _plain_inverse(v, wavelet), c3, interpret=interpret)
     return out.reshape(batch + (n,))
 
 
@@ -395,8 +335,8 @@ def modwt_fused(x, wavelet: DiscreteWavelet, level: int,
     """Fused forward MODWT: x (..., N) → (level+1, ..., N); differentiable.
 
     float32 or bfloat16 in and out, f32 arithmetic.  ``interpret=True`` runs
-    the block program in jnp on any backend; otherwise this needs
-    :func:`available`.
+    the XLA cascade in the kernel's place on any backend; otherwise this
+    needs :func:`available`.
     """
     return _forward(x, wavelet, level, tile, interpret)
 
@@ -448,16 +388,15 @@ def _denoise(x, threshold, wavelet, level, mode, tile, interpret):
     g, h = _taps(wavelet)
     p = _plan_or_raise("denoise", x2.shape[0], n, level, len(g), tile,
                        x.shape)
-    if interpret:
-        out = _emulate_denoise(x2, thr, g, h, level, mode, p)
-    else:
-        _require("the fused denoise")
-        out = jax.ffi.ffi_call(
-            "jwave_modwt_denoise",
-            jax.ShapeDtypeStruct(x2.shape, x.dtype),
-            vmap_method="sequential",
-        )(x2, thr, level=np.int32(level), tile=np.int32(p.tile),
-          halo=np.int32(p.halo), mode=np.int32(_MODES[mode]), g=g, h=h)
+    kernel = jax.ffi.ffi_call(
+        "jwave_modwt_denoise", jax.ShapeDtypeStruct(x2.shape, x.dtype),
+        vmap_method="sequential")
+    out = _route(
+        lambda v, t: kernel(v, t, level=np.int32(level),
+                            tile=np.int32(p.tile), halo=np.int32(p.halo),
+                            mode=np.int32(_MODES[mode]), g=g, h=h),
+        lambda v, t: _plain_denoise(v, t, wavelet, level, mode),
+        x2, thr, interpret=interpret)
     return out.reshape(x.shape)
 
 
@@ -515,20 +454,20 @@ def _variance(x, wavelet, level, tile, interpret):
     g, h = _taps(wavelet)
     p = _plan_or_raise("variance", x2.shape[0], n, level, len(g), tile,
                        x.shape)
-    ntiles = -(-n // p.tile)
-    if interpret:
-        partial = _emulate_variance(x2, g, h, level, p)
-    else:
-        _require("the fused variance")
-        partial = jax.ffi.ffi_call(
-            "jwave_modwt_var",
-            jax.ShapeDtypeStruct((x2.shape[0], ntiles, level + 1),
-                                 jnp.float32),
-            vmap_method="sequential",
-        )(x2, level=np.int32(level), tile=np.int32(p.tile),
-          halo=np.int32(p.halo), g=g, h=h)
-    sums = jnp.sum(partial, axis=1) / n            # (rows, level+1)
-    return sums.T.reshape((level + 1,) + batch)
+    kernel = jax.ffi.ffi_call(
+        "jwave_modwt_var",
+        jax.ShapeDtypeStruct((x2.shape[0], -(-n // p.tile), level + 1),
+                             jnp.float32),
+        vmap_method="sequential")
+
+    def on_card(v):     # per-tile partial sums, summed here
+        partial = kernel(v, level=np.int32(level), tile=np.int32(p.tile),
+                         halo=np.int32(p.halo), g=g, h=h)
+        return (jnp.sum(partial, axis=1) / n).T     # (level+1, rows)
+
+    out = _route(on_card, lambda v: _plain_variance(v, wavelet, level), x2,
+                 interpret=interpret)
+    return out.reshape((level + 1,) + batch)
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(1, 2, 3, 4))

@@ -2,11 +2,13 @@
 earlier hand-written kernels were retired.
 
 A CUDA kernel has no interpret mode, so on the CPU the kernel entry points
-run with ``interpret=True``: the same tiled block program (windows, circular
-context, level order, f32 arithmetic) written in jnp.  These tests pin that
-program, the launch plan, the arbitrary-N slicing, the dispatch choice and
-the VJP rule against the f64 reference; ``chip_smoke.py`` checks the
-compiled kernels against the same reference on the card.
+run with ``interpret=True``, which puts the XLA cascade (``method="direct"``
+in f32) where the custom call would be.  These tests pin the wrapper around
+the kernels: the launch plan, reshaping of batches and the 1D contract,
+arbitrary-N shapes, bf16 in and out, the threshold tables, the dispatch
+choice, the routing by platform and the VJP rules, against the f64
+reference.  The compiled kernels' tiling, context and seams are checked
+against a float64 NumPy reference on the card by ``chip_smoke.py``.
 """
 import importlib.util
 import os
@@ -160,8 +162,9 @@ def test_arbitrary_n_1d_contract(rng):
 
 
 def test_batch1_long_series_parity(rng):
-    """One long series split into tiles — the seams between tiles must be
-    exact (each block loads its own real context)."""
+    """One long series over several tiles of the plan: the entry point
+    agrees with the reference around the tile seams (on the card each
+    block loads its own context there; chip_smoke.py checks the kernel)."""
     n = 1 << 15
     x = jnp.asarray(rng.standard_normal((1, n)), jnp.float32)
     got = np.asarray(modwt_fused(x, DB4, 5, interpret=True))
@@ -182,7 +185,7 @@ def test_grad_through_fused(rng):
 
 
 class TestDenoiseFused:
-    """Single-pass denoise block program vs the XLA modwt_denoise pipeline."""
+    """Single-pass denoise entry point vs the XLA modwt_denoise pipeline."""
 
     @pytest.mark.parametrize("batch,n,level", [
         (8, 4096, 3),     # two tiles per row
@@ -210,7 +213,7 @@ class TestDenoiseFused:
 
     def test_public_method_fused_default_threshold(self, rng):
         """The universal-threshold table the public path hands the kernel,
-        through the block program, equals the XLA pipeline; on the CPU the
+        through the entry point, equals the XLA pipeline; on the CPU the
         public method='fused' raises instead of interpreting."""
         from jwave_pro.ops.denoise import _fused_threshold
 
@@ -287,7 +290,8 @@ class Test1DFastPath:
 
 
 class TestVarianceFused:
-    """Single-pass wavelet variance: per-tile partial sums, summed in XLA."""
+    """Single-pass wavelet variance: shape, statistic and VJP of the
+    entry point (on the card: per-tile partial sums, summed in XLA)."""
 
     @pytest.mark.parametrize("batch,n,level", [
         (8, 4096, 3),
@@ -389,8 +393,8 @@ class TestBf16Tier:
 
 class TestPaddedDispatchSweep:
     def test_modwt_bf16_with_pad(self, rng):
-        # bf16 I/O and a partial last tile share the block's load/store
-        # masking — pin their composition
+        # bf16 I/O with a partial last tile of the plan — pin their
+        # composition
         p = plan("forward", 8, 2000, 3, DB4.length)
         assert p is not None and 2000 % p.tile != 0
         x32 = jnp.asarray(rng.standard_normal((8, 2000)), jnp.float32)
@@ -457,6 +461,36 @@ def test_kernel_entry_without_interpret_raises_on_cpu(call, rng):
     x = jnp.asarray(rng.standard_normal((2, 1024)), jnp.float32)
     with pytest.raises(ValueError, match="needs a CUDA GPU"):
         call(x)
+
+
+@pytest.mark.parametrize("kind", ["forward", "inverse", "denoise", "variance"])
+def test_route_lowers_only_the_platform_branch(kind, rng, monkeypatch):
+    """The custom call is lowered only for a CUDA GPU.  Lowered for any
+    other platform (here the CPU, as for arrays placed on the host of a GPU
+    machine) the program holds the XLA cascade alone, even where the
+    kernels are available."""
+    from jwave_pro.kernels import modwt_cuda as kc
+
+    monkeypatch.setattr(kc, "available", lambda: True)
+    x = jnp.asarray(rng.standard_normal((3, 1000)), jnp.float32)
+    c = jnp.asarray(_ref(x, 2), jnp.float32)
+    call, arg, want = {
+        "forward": (lambda v: modwt_fused(v, DB4, 2), x, c),
+        "inverse": (lambda v: imodwt_fused(v, DB4), c, x),
+        "denoise": (lambda v: modwt_denoise_fused(v, 0.5, DB4, 2), x,
+                    jw.modwt_denoise(x, DB4, 2, threshold=0.5,
+                                     method="direct")),
+        "variance": (lambda v: modwt_var_fused(v, DB4, 2), x,
+                     jnp.mean(c ** 2, axis=-1)),
+    }[kind]
+    f = jax.jit(call)
+    try:
+        assert "jwave_modwt" not in f.lower(arg).as_text()
+        np.testing.assert_allclose(np.asarray(f(arg)), np.asarray(want),
+                                   rtol=1e-5, atol=2e-5)
+    finally:    # drop the traces made with the kernels marked available
+        for fn in (kc._forward, kc._inverse, kc._denoise, kc._variance):
+            fn.clear_cache()
 
 
 def test_chip_smoke_refuses_cpu():
